@@ -1,9 +1,12 @@
-"""Extended benchmark suite: one JSON line per config (not the driver
-headline — that stays ``bench.py``). Mirrors BASELINE.md's target list:
-Cornell frequency-encoding frame loop, hash-grid frame loop, the big-BVH
-scene, the hair scene, and the standalone cache train/infer throughput.
+"""Extended benchmark suite: one JSON line per config (the headline stays
+``bench.py``): the Cornell frame loop with each encoding, the generated
+big Cornell scene, the standalone cache train/infer throughput and the
+shipped-config quality against the stored ground truth.
 
 Usage: python bench_suite.py [--spp N] [--only cornell,hash,...]
+
+Every line names the device it ran on; a case that fails makes the run
+exit non-zero.
 """
 
 import argparse
@@ -13,40 +16,51 @@ import sys
 import time
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CORNELL = os.path.join(ROOT, "data", "cornell")
+SYSTEM = os.path.join(CORNELL, "system_mdl_cornell.txt")
+
+
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
+
+
+def _emit(row):
+    import jax
+
+    dev = jax.devices()[0]
+    row["device"] = {"platform": dev.platform, "kind": dev.device_kind,
+                     "count": len(jax.devices())}
+    print(json.dumps(row), flush=True)
 
 
 def _bench_frames(r, spp):
     """Timed frame loop -> (fps, traced_mrays_per_s).
 
-    One accounting everywhere: Mrays/s counts rays actually cast
-    (closest-hit segments of live lanes + valid shadow rays, summed on
-    device per frame) — same numerator as bench.py's headline. The old
-    potential-ray formula ((pixels+tiles) x segs x 2 x fps) assumed every
-    path traces every segment and overstated throughput severalfold."""
-    import jax.numpy as jnp
+    Mrays/s counts rays actually cast (closest-hit segments of live lanes
+    + valid shadow rays, summed on device per frame) — the same numerator
+    as bench.py's headline."""
+    import jax
 
     for _ in range(3):
         r.render_frame()
-    float(jnp.ravel(r.image)[0])
+    jax.block_until_ready((r.image, r.net_state))
     stats = []
     t0 = time.perf_counter()
     for _ in range(spp):
         stats.append(r.render_frame())
-    float(jnp.ravel(r.image)[0])
-    float(jnp.ravel(r.net_state.params.w_in)[0])
+    jax.block_until_ready((r.image, r.net_state))
     dt = time.perf_counter() - t0
     traced = sum(int(s.traced_rays) for s in stats)  # after the barrier
     return spp / dt, traced / dt / 1e6
 
 
-def _frame_case(name, sysf, scnf, spp, res=None, tile=(4, 4), encoding=None):
+def _frame_case(name, scnf, spp, res=None, tile=(4, 4), encoding=None):
     from nrc_tpu.config import RenderMode
     from nrc_tpu.render.renderer import Renderer
     from nrc_tpu.scene.scene_builder import load_scene
 
-    scene, system = load_scene(sysf, scnf)
+    scene, system = load_scene(SYSTEM, os.path.join(CORNELL, scnf))
     if res is not None:
         system.resolution = res
         scene.camera.aspect = res[0] / res[1]
@@ -62,78 +76,27 @@ def _frame_case(name, sysf, scnf, spp, res=None, tile=(4, 4), encoding=None):
     r = Renderer(scene, system, render_mode=RenderMode.FULL, train=True,
                  adaptive_tiles=False, **kw)
     fps, mrays = _bench_frames(r, spp)
-    print(json.dumps({
-        "case": name, "metric": "mrays_per_s", "value": round(mrays, 3),
-        "fps": round(fps, 3), "ms_per_frame": round(1000.0 / fps, 1),
+    _emit({
+        "case": name, "metric": "mrays_per_s", "value": mrays,
+        "fps": fps, "ms_per_frame": 1000.0 / fps,
         "unit": "Mrays/s traced",
-    }), flush=True)
+    })
 
 
 def case_cornell(spp):
-    _frame_case(
-        "cornell_320_freq",
-        "/root/reference/data/system_mdl_cornell.txt",
-        "/root/reference/data/scene_mdl_cornell.txt", spp,
-    )
+    _frame_case("cornell_320_freq", "scene_mdl_cornell.txt", spp)
 
 
 def case_hash(spp):
-    _frame_case(
-        "cornell_320_hash",
-        "/root/reference/data/system_mdl_cornell.txt",
-        "/root/reference/data/scene_mdl_cornell.txt", spp, encoding="hash",
-    )
+    _frame_case("cornell_320_hash", "scene_mdl_cornell.txt", spp,
+                encoding="hash")
 
 
-def case_vmaterials(spp):
-    _frame_case(
-        "vmaterials_486k_96",
-        "/root/reference/data/system_mdl_vMaterials.txt",
-        "/root/reference/data/scene_mdl_vMaterials.txt", max(spp // 4, 4),
-        res=(96, 96), tile=(2, 2),
-    )
-
-
-def case_demo(spp):
-    """BASELINE config #4: the reference's hero demo scene (README.md:5-6,
-    data/system_mdl_demo.txt) — 1.39M tris, full MDL material matrix, HDR
-    env — at 2K, FULL mode with online training."""
-    _frame_case(
-        "demo_1p39M_2k",
-        "/root/reference/data/system_mdl_demo.txt",
-        "/root/reference/data/scene_mdl_demo.txt", max(spp // 8, 2),
-        res=(1920, 1080), tile=(16, 16),
-    )
-
-
-def case_demo_shipped(spp):
-    """The shipped demo config's own resolution (data/system_mdl_demo.txt:
-    resolution 1280 360) — the closest apples-to-apples row vs the
-    reference's interactive hero claim (README.md:5-6)."""
-    return _frame_case(
-        "demo_1p39M_shipped_1280x360",
-        "/root/reference/data/system_mdl_demo.txt",
-        "/root/reference/data/scene_mdl_demo.txt", max(spp // 4, 2),
-        res=(1280, 360), tile=(16, 16),
-    )
-
-
-def case_demo_720(spp):
-    _frame_case(
-        "demo_1p39M_720p",
-        "/root/reference/data/system_mdl_demo.txt",
-        "/root/reference/data/scene_mdl_demo.txt", max(spp // 4, 2),
-        res=(1280, 720), tile=(16, 16),
-    )
-
-
-def case_hair(spp):
-    _frame_case(
-        "hair_96",
-        "/root/reference/data/system_mdl_hair.txt",
-        "/root/reference/data/scene_mdl_hair.txt", max(spp // 4, 4),
-        res=(96, 96), tile=(2, 2),
-    )
+def case_big(spp):
+    """Cornell + a 32k-triangle sphere: the wide BVH walk, the compact-once
+    wavefront and the tiled primary raster."""
+    _frame_case("cornell_big_320_freq", "scene_mdl_cornell_big.txt",
+                max(spp // 4, 4))
 
 
 def case_mlp(spp):
@@ -152,40 +115,37 @@ def case_mlp(spp):
 
     step = jax.jit(lambda ns, q, t: N.train_step(ns, q, t, cfg))
     ns2, _ = step(ns, q, t)
-    float(jnp.ravel(ns2.params.w_in)[0])
+    jax.block_until_ready(ns2)
     t0 = time.perf_counter()
     R = 50
     for _ in range(R):
         ns2, _ = step(ns2, q, t)
-    float(jnp.ravel(ns2.params.w_in)[0])
+    jax.block_until_ready(ns2)
     dt = time.perf_counter() - t0
-    print(json.dumps({
+    _emit({
         "case": "mlp_train_16384", "metric": "samples_per_s",
-        "value": round(R * B / dt / 1e6, 2), "unit": "Msamples/s",
-    }), flush=True)
+        "value": R * B / dt / 1e6, "unit": "Msamples/s",
+    })
 
     inf = jax.jit(lambda ns, q: N.infer(ns, q, cfg))
-    r = inf(ns2, q)
-    float(r[0, 0])
+    r = jax.block_until_ready(inf(ns2, q))
     t0 = time.perf_counter()
     for _ in range(R):
         r = inf(ns2, q)
-    float(r[0, 0])
+    jax.block_until_ready(r)
     dt = time.perf_counter() - t0
-    print(json.dumps({
+    _emit({
         "case": "mlp_infer_16384", "metric": "samples_per_s",
-        "value": round(R * B / dt / 1e6, 2), "unit": "Msamples/s",
-    }), flush=True)
+        "value": R * B / dt / 1e6, "unit": "Msamples/s",
+    })
 
 
 def case_quality(spp):
-    """Shipped-config quality, regenerated mechanically (VERDICT r2 #8):
-    render the reference's Cornell config (320x320, 256 spp,
-    system_mdl_cornell.txt) in FULL mode with online training for BOTH
-    encodings and report tonemapped PSNR/SSIM vs the cached 1024-spp
-    NO_CACHE ground truth artifact (tests/data/cornell_gt_320.npz,
-    tools/make_ground_truth.py). ``--spp`` is ignored: the config IS the
-    shipped one."""
+    """Shipped-config quality: render the Cornell config (320x320, 256
+    spp) in FULL mode with online training for BOTH encodings and report
+    tonemapped PSNR/SSIM vs the stored 4096-spp NO_CACHE ground truth
+    (tests/data/cornell_gt_320.npz, tools/make_ground_truth.py).
+    ``--spp`` is ignored: the config IS the shipped one."""
     del spp
     import numpy as np
     import jax.numpy as jnp
@@ -204,8 +164,7 @@ def case_quality(spp):
 
     for enc in (InputEncoding.HASH, InputEncoding.FREQUENCY):
         scene, system = load_scene(
-            "/root/reference/data/system_mdl_cornell.txt",
-            "/root/reference/data/scene_mdl_cornell.txt",
+            SYSTEM, os.path.join(CORNELL, "scene_mdl_cornell.txt")
         )
         system.tile_size = (4, 4)
         shipped_spp = system.samples_sqrt ** 2  # 256 at the shipped config
@@ -224,24 +183,20 @@ def case_quality(spp):
         gt_t = np.asarray(
             tonemap_to_u8(jnp.asarray(gt), tm), np.float32
         ) / 255.0
-        print(json.dumps({
+        _emit({
             "case": f"quality_cornell320_{enc.name.lower()}",
             "metric": "psnr_db",
-            "value": round(float(psnr(img, gt_t)), 2),
-            "ssim": round(float(ssim(img, gt_t)), 4),
-            "spp": shipped_spp, "seconds": round(dt, 1),
+            "value": float(psnr(img, gt_t)),
+            "ssim": float(ssim(img, gt_t)),
+            "spp": shipped_spp, "seconds": dt,
             "unit": "dB vs 4096-spp NO_CACHE GT (tonemapped)",
-        }), flush=True)
+        })
 
 
 CASES = {
     "cornell": case_cornell,
     "hash": case_hash,
-    "vmaterials": case_vmaterials,
-    "demo": case_demo,
-    "demo720": case_demo_720,
-    "demo_shipped": case_demo_shipped,
-    "hair": case_hair,
+    "big": case_big,
     "mlp": case_mlp,
     "quality": case_quality,
 }
@@ -252,14 +207,22 @@ def main():
     ap.add_argument("--spp", type=int, default=32)
     ap.add_argument("--only", default=None)
     args = ap.parse_args()
+    import jax
+
+    if jax.devices()[0].platform != "gpu":
+        log(f"bench_suite needs a GPU; found {jax.devices()[0].platform}")
+        return 1
     names = args.only.split(",") if args.only else list(CASES)
+    failed = []
     for n in names:
         log(f"=== {n} ===")
         try:
             CASES[n](args.spp)
-        except Exception as e:  # keep going; report the failure as data
-            print(json.dumps({"case": n, "error": repr(e)[:200]}), flush=True)
+        except Exception as e:  # keep going; report the failure at the end
+            log(f"case {n} failed: {type(e).__name__}: {e}")
+            failed.append(n)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

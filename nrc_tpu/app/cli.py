@@ -7,8 +7,8 @@ Option parity with ``nrc/src/Options.cpp:45-157``:
   -d/--scene               scene description file
   -o/--optimize            accepted (graph optimization is automatic here)
 
-plus TPU-native extensions: --spp, --render-mode, --encoding, --devices
-(multi-chip), --checkpoint/--resume, --stats-log.
+plus extensions: --spp, --render-mode, --encoding, --devices (multi-GPU),
+--checkpoint/--resume, --stats-log.
 
 Usage:
   python -m nrc_tpu.app.cli -s data/system.txt -d data/scene.txt -m 1
@@ -27,7 +27,7 @@ from ..config import InputEncoding, NetworkConfig, RenderMode
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="nrc_tpu", add_help=False,
-        description="TPU-native neural radiance caching renderer",
+        description="neural radiance caching renderer",
     )
     p.add_argument("--help", action="help")
     p.add_argument("-w", "--width", type=int, default=None)
@@ -55,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--area-spread", type=float, default=None,
                    help="area-spread truncation constant c (default 0.01)")
     p.add_argument("--devices", type=int, default=1,
-                   help="shard the frame over N chips (shard_map data mesh)")
+                   help="shard the frame over N devices (shard_map data mesh)")
     p.add_argument("--checkpoint", default=None,
                    help="save the full render state here when done")
     p.add_argument("--checkpoint-format", default="npz",
@@ -75,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-system", default=None, metavar="PATH",
                    help="write the current system description (Key S parity)")
     p.add_argument("--stats-log", default=None,
-                   help="write per-frame JSONL stats (loss, records, tile size)")
+                   help="write per-frame JSONL stats (loss, records, tile "
+                        "size, seconds since the loop started)")
     p.add_argument("--present", action="store_true",
                    help="interactive mode: serve a live HTTP viewer with "
                         "orbit/pan/dolly/zoom (also enabled by 'present 1' "
@@ -419,6 +420,9 @@ def _render_loop(args, driver, r, spp, stats_f, t0):
                         "num_train_records": int(stats.num_train_records),
                         "traced_rays": int(stats.traced_rays),
                         "tile_size": list(r.cfg.tile_size),
+                        # the loss read above waits for this frame, so
+                        # this is the frame's completion time
+                        "seconds": time.perf_counter() - t0,
                     }
                 )
                 + "\n"

@@ -1,8 +1,8 @@
 /* nrc_native — host-side native runtime helpers for nrc_tpu.
  *
  * The reference implements its host runtime (image decode, BVH build,
- * memory arenas) in C++ (nrc/src/Picture.cpp, Device.cpp); the TPU build
- * keeps the same split: JAX/XLA/Pallas on-device, C for host hot paths,
+ * memory arenas) in C++ (nrc/src/Picture.cpp, Device.cpp); this build
+ * keeps the same split: JAX/XLA on-device, C for host hot paths,
  * exposed through ctypes (no pybind11 in this toolchain).
  *
  * Contents:
@@ -10,7 +10,7 @@
  *     (replaces DevIL HDR import used for env maps, Picture.cpp)
  *   - bvh_build_binned_sah: binned-SAH BVH builder over triangle AABBs
  *     (replaces OptiX GAS builds, Device.cpp:1845-1963) producing a
- *     flattened depth-first node array for the TPU traversal kernels.
+ *     flattened depth-first node array for the lockstep traversal.
  */
 
 #include <stdint.h>
@@ -349,7 +349,7 @@ EXPORT void bvh_collapse_sizes(
 /* Wide (branch-N) BVH collapse                                        */
 /* ------------------------------------------------------------------ */
 
-/* Collapse the binary SAH tree into wide nodes for the 8-wide TPU
+/* Collapse the binary SAH tree into wide nodes for the wide lockstep
  * traversal (ops/bvh_wide.py). Child sets grow by greedily expanding the
  * largest-surface-area inner child whose subtree exceeds leaf_size until
  * `branch` slots are used; subtrees fitting leaf_size become leaf

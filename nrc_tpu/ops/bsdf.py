@@ -1,6 +1,6 @@
 """BSDF archetype family: sample / evaluate / auxiliary, fully batched.
 
-The TPU-native replacement for MDL's JIT-generated per-material direct
+The replacement for MDL's JIT-generated per-material direct
 callables (``optixDirectCall`` of scattering sample/eval/aux in
 ``nrc/shaders/hit.cu:306-486``). Instead of function pointers, the material
 archetype id selects between three vectorized lobe families (diffuse,
@@ -188,7 +188,7 @@ def bsdf_sample(
     """Importance-sample the per-ray archetype BSDF (``hit.cu:306-337``).
 
     ``families`` statically specializes the compiled program to the
-    archetypes actually present in the scene — the TPU analog of the
+    archetypes actually present in the scene — the analog of the
     reference JIT-compiling only the MDL materials a scene declares
     (``Raytracer::initMaterialsMDL``): absent lobe families cost nothing.
     """

@@ -74,20 +74,20 @@ def flatten_skip_links(
     leaf_size: int = 4,
 ) -> Dict[str, np.ndarray]:
     """Re-flatten a (left/right/start/count) BVH into the stackless
-    skip-link layout the TPU traversal consumes.
+    skip-link layout the lockstep traversal consumes.
 
     Pre-order node numbering makes the "hit" successor of an inner node
     simply ``node + 1``; each node additionally stores the pre-order
     ``miss`` successor (where to resume when its AABB test fails or a leaf
     finishes). Traversal is then a single lockstep pointer walk — no
     per-ray stack arrays (whose [N, depth] scatter updates dominated the
-    old vmapped-stack traversal on TPU).
+    old vmapped-stack traversal).
 
     The lockstep walk is gather-latency/bandwidth-bound (serialized row
     fetches per step), so the layout keeps node rows minimal and fetches
-    the leaf triangle block in one second row gather (measured faster than
-    inlining the block into every node row, which wastes its bytes on
-    inner-node visits):
+    the leaf triangle block in one second row gather (rather than inlining
+    the block into every node row, which wastes its bytes on inner-node
+    visits):
 
     - ``node_box`` [octants, n+1, 8]: lo | hi | bitcast(miss) |
       bitcast(leaf_row); 8 per-direction-octant pre-order variants by

@@ -1,11 +1,10 @@
 """8-wide BVH build: collapse the binary SAH tree into branch-8 nodes
 whose rows carry ALL EIGHT children's AABBs + child pointers.
 
-Why wide, on TPU: the lockstep traversal's cost is gathered node ROWS
-(per-row latency-bound, nearly independent of row width — BASELINE.md's
-cost model), so a node row that answers "which of 8 subtrees does this ray
+Why wide: the lockstep traversal's cost is gathered node ROWS (on the
+accelerator this was designed on, nearly independent of row width), so a node row that answers "which of 8 subtrees does this ray
 enter?" in ONE gather replaces ~7 binary-node gathers of the skip-link
-walk. This is the TPU analog of the RT-core/CWBVH wide-node idea behind
+walk. This is the analog of the RT-core/CWBVH wide-node idea behind
 ``optixTrace`` (reference: ``Device.cpp:1845-2253`` builds the OptiX GAS;
 the traversal hardware is opaque — we replace it, not translate it).
 
@@ -14,7 +13,7 @@ Output arrays (consumed by ``ops/intersect_wide.py``):
 - ``rows`` [W + L, P] f32: ONE unified table of node rows followed by leaf
   rows, so the walk issues exactly ONE row gather per step whatever a lane
   is doing (descend or leaf test) — gathers are per-row latency-bound and
-  the round-2 layout paid two of them (separate ``wnode`` + ``leaf_pack``
+  an older layout paid two of them (separate ``wnode`` + ``leaf_pack``
   fetches) per step.
 
   - node row (indices 0..W-1): COMPONENT-major child boxes — lox*8 |
@@ -26,7 +25,7 @@ Output arrays (consumed by ``ops/intersect_wide.py``):
     index); meta < 0 -> leaf child (row = W + ~meta); meta == NONE ->
     empty slot. Slot order is build order: the walk sorts children by
     actual slab entry distance at visit time (a 19-comparator network on
-    [N, 8] columns), which replaced the round-2 8x octant-replicated
+    [N, 8] columns), which replaced an 8x octant-replicated
     pre-sorted variants — true per-ray ordering prunes more, and the node
     table shrinks 8x.
   - leaf row (indices W..W+L-1): component-major primitive columns
@@ -271,7 +270,7 @@ def flatten_wide_rows(
     # (p0x of tris 0..ls-1, then p0y, ... then ids). The traversal's leaf
     # math then runs on [N, ls] slices with no minor-dim-3 axis — packed
     # per-triangle (p0|e1|e2) rows forced cross products on a 3-wide minor
-    # axis, wasting ~97% of the VPU (same lesson as intersect._mt_hits).
+    # axis (same lesson as intersect._mt_hits).
     rows_mat = np.where(
         (ids_mat >= 0)[:, :, None],
         prim_rows[np.maximum(ids_mat, 0)],
@@ -330,12 +329,10 @@ def flatten_wide_rows(
 def split_rows_u16(rows: np.ndarray) -> Dict[str, np.ndarray]:
     """f32 row table -> two uint16 HALF tables (hi/lo bits of every value).
 
-    XLA:TPU's row gather cost tracks the PHYSICAL row size after lane
-    padding: a [R, P<=128] f32 row pads to 512 B and gathers ~6x slower
-    than a 256 B 16-bit row (measured round 4, interleaved: f32 [300k,80]
-    ~15 us net per 2048-row gather vs ~2.5 us for u16/bf16 — the gather is
-    84% of the wide walk). Storing the unified node+leaf table as two u16
-    half tables makes the walk pay two fast gathers + a full-width
+    On the accelerator this was written for, a row gather's cost tracked
+    the PHYSICAL row size after padding, so 16-bit rows gathered faster
+    than f32 rows; not yet measured on the GPU. Storing the unified
+    node+leaf table as two u16 half tables makes the walk pay two fast gathers + a full-width
     reconstruct (cast/shift/or/bitcast) instead of one slow gather, with
     BIT-EXACT f32 rows — geometry precision and the i32 meta/pid columns
     are untouched."""

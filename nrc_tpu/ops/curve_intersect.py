@@ -1,11 +1,11 @@
 """Ray / rounded-cone intersection for hair & curve primitives.
 
-TPU-native replacement for OptiX's built-in cubic-B-spline curve
+Replacement for OptiX's built-in cubic-B-spline curve
 intersector (reference ``Device.cpp:857-863`` builtin IS module +
 ``__closesthit__curves``, ``hit.cu:1665-2046``). Strands are tessellated on
 the host into *rounded cones* — linear segments swept with linearly varying
 radius (``scene/hair.py``) — which admit a closed-form quadratic
-intersection that vectorizes cleanly onto the VPU: no per-thread spline
+intersection that vectorizes cleanly onto elementwise: no per-thread spline
 root-finding, no divergence.
 
 The analytic round-cone test follows the standard quadratic formulation
@@ -212,8 +212,8 @@ def _skip_traverse_curves(org, direction, bvh, tmin, tmax, any_hit: bool):
 
         # ---- leaf service: lanes parked last step test their K round
         # cones now and advance to the miss link. ONE flat loop — the
-        # nested two-phase descend/leaf structure cost ~300 us of loop
-        # re-entry per leaf round on TPU (see ops/intersect_wide.py).
+        # nested two-phase descend/leaf structure paid a loop re-entry per
+        # leaf round (see ops/intersect_wide.py).
         do_leaf = lrow >= 0
         seg = bvh["leaf_pack"][jnp.maximum(lrow, 0)]    # [N, K*10]
         for k in range(leaf_size):

@@ -1,7 +1,7 @@
 """Network input encodings: TriangleWave + OneBlob + Identity, and the
 multiresolution hash grid.
 
-TPU-native equivalents of tiny-cuda-nn's composite encoding configured in
+Equivalents of tiny-cuda-nn's composite encoding configured in
 ``nrc/inc/NRCNetworkConfigs.h:49-127``:
 
 - frequency path: TriangleWave(3 position dims x 12 frequencies -> 36)
@@ -11,9 +11,9 @@ TPU-native equivalents of tiny-cuda-nn's composite encoding configured in
   base res 16, per-level scale 2.0 -> 32) + OneBlob(24) + Identity(6) = 62
 
 The raw query layout ([15]) comes from ``integrator.make_query``. Spherical
-angles are normalized into [0,1] before OneBlob (a TPU-side improvement —
-tcnn feeds radians straight in; the blob kernel works best on a unit
-domain). All outputs are padded-to-lane-width by the MLP, not here.
+angles are normalized into [0,1] before OneBlob (a deviation — tcnn feeds
+radians straight in; the blob kernel works best on a unit domain). All
+outputs are padded to the MLP's input width by the MLP, not here.
 """
 
 from __future__ import annotations
@@ -43,10 +43,8 @@ def triangle_wave(x: jnp.ndarray, n_frequencies: int) -> jnp.ndarray:
     unit-period triangle wave in [0, 1]. Column order d*F + j (dim-major,
     matching the original [..., D, F] reshape — checkpoint layout).
 
-    Computed COLUMN-PLANAR: a [..., D, F] intermediate puts (D, F) on the
-    minor tile dims and wastes ~90% of every VPU op (the `_mt_hits`
-    lesson); repeating to [..., D*F] first keeps all math full-width
-    (round 4: the encode was ~40% of the cache-MLP train step).
+    Computed column-planar: repeating to [..., D*F] first keeps all math
+    on one wide minor axis instead of a small [..., D, F] intermediate.
     """
     d = x.shape[-1]
     freqs = jnp.tile(
@@ -199,147 +197,24 @@ def _corner_index_weight_all_levels(pos: jnp.ndarray, corner: int,
     return idx, w
 
 
-def _use_onehot_adjoint(size: int) -> bool:
-    """One-hot MXU adjoint: on for lane-divisible tables on TPU (where the
-    XLA scatter-add measured 104 ms/step at the shipped config); off on CPU
-    (scatter is fine there and the one-hot FLOPs are not). Force with
-    NRC_HASH_ONEHOT_BWD=1/0."""
-    import os
-
-    v = os.environ.get("NRC_HASH_ONEHOT_BWD", "auto")
-    if v == "1":
-        return size % 128 == 0
-    if v == "0":
-        return False
-    import jax
-
-    return size % 128 == 0 and jax.devices()[0].platform == "tpu"
-
-
-@jax.custom_vjp
-def _grid_gather(table: jnp.ndarray, idx8: jnp.ndarray, w8: jnp.ndarray):
-    """Weighted 8-corner table gather with an MXU-formulated adjoint.
-
-    ``table`` [L, S, F]; ``idx8`` [8, B, L] per-corner LOCAL row indices
-    (0..S); ``w8`` [8, B, L] trilinear weights -> [B, L, F].
-
-    Forward: 8 XLA row gathers (measured 15.6 ms at B=16k/L=16/S=32k on
-    v5e — the fastest gather formulation tried, `tools/bench_gather.py`).
-    Backward: the autodiff adjoint would be a scatter-add of 8*B*L rows
-    (measured 104 ms — XLA:TPU scatters are ~26 ns/row serial). Instead the
-    adjoint is expressed as blocked ONE-HOT MATMULS over a [S/128, 128]
-    split of each level's table: dT = onehot(hi)^T @ (w*g * onehot(lo)),
-    ~275 GFLOP of well-shaped bf16 MXU work per 131k-row update batch.
-    Gradients round through bf16 (the one-hot factors and update rows);
-    Adam on noisy radiance targets absorbs this (convergence + quality
-    gates unchanged, see tests).
-
-    Position cotangents are NOT produced (zeros): the integrator never
-    differentiates query positions. Differentiate w.r.t. ``table`` only.
-    """
-    L, S, F = table.shape
-    flat = table.reshape(L * S, F)
-    level_ofs = jnp.arange(L, dtype=jnp.int32) * S
-    # ONE stacked gather for all 8 corners (measured 12.7 vs 15.1 ms for
-    # 8 separate gathers at B=16k/L=16/S=32k, tools/bench_gather.py)
-    gathered = flat[idx8 + level_ofs[None, None, :]]       # [8, B, L, F]
-    return jnp.sum(w8[..., None] * gathered, axis=0)
-
-
-def _grid_gather_fwd(table, idx8, w8):
-    return _grid_gather(table, idx8, w8), (table.shape, idx8, w8)
-
-
-def _grid_gather_bwd(res, g):
-    (L, S, F), idx8, w8 = res
-    assert S % 128 == 0, "one-hot adjoint needs a lane-divisible table"
-    R = S // 128
-    _, B, _ = idx8.shape
-    # [L, Q] with Q = 8*B: all corners of all batch rows, level-major
-    ii = idx8.transpose(2, 0, 1).reshape(L, 8 * B)
-    ww = w8.transpose(2, 0, 1).reshape(L, 8 * B)
-    # update rows: w * g, replicated across the 8 corners  [L, Q, F]
-    gq = jnp.broadcast_to(g.transpose(1, 0, 2)[:, None], (L, 8, B, F))
-    upd = gq.reshape(L, 8 * B, F) * ww[..., None]
-    hi = ii // 128
-    lo = ii % 128
-    iota_r = jnp.arange(R, dtype=jnp.int32)
-    iota_c = jnp.arange(128, dtype=jnp.int32)
-
-    # chunk the Q axis so the one-hot factors stay ~MBs, scan-accumulated
-    Q = 8 * B
-    CH = 16384 if Q > 16384 else ((Q + 127) // 128) * 128
-    pad = (-Q) % CH
-    if pad:
-        hi = jnp.concatenate([hi, jnp.zeros((L, pad), hi.dtype)], axis=1)
-        lo = jnp.concatenate([lo, jnp.zeros((L, pad), lo.dtype)], axis=1)
-        upd = jnp.concatenate(
-            [upd, jnp.zeros((L, pad, F), upd.dtype)], axis=1
-        )
-    nch = (Q + pad) // CH
-    hi = hi.reshape(L, nch, CH).transpose(1, 0, 2)       # [nch, L, CH]
-    lo = lo.reshape(L, nch, CH).transpose(1, 0, 2)
-    upd = upd.reshape(L, nch, CH, F).transpose(1, 0, 2, 3)
-
-    def body(acc, args):
-        h, lo_, u = args
-        oh_hi = (h[..., None] == iota_r).astype(jnp.bfloat16)   # [L, CH, R]
-        oh_lo = (lo_[..., None] == iota_c).astype(jnp.bfloat16)  # [L, CH,128]
-        # [L, CH, 128*F]: zero except the target lane column
-        rows = (oh_lo[..., None] * u[:, :, None, :].astype(jnp.bfloat16))
-        rows = rows.reshape(L, CH, 128 * F)
-        d = jax.lax.dot_general(
-            oh_hi, rows,
-            dimension_numbers=(((1,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )                                                        # [L, R, 128F]
-        return acc + d, None
-
-    dT, _ = jax.lax.scan(
-        body, jnp.zeros((L, R, 128 * F), jnp.float32), (hi, lo, upd)
-    )
-    dtable = dT.reshape(L, R, 128, F).reshape(L, S, F)
-    return dtable, jnp.zeros_like(idx8), jnp.zeros_like(w8)
-
-
-_grid_gather.defvjp(_grid_gather_fwd, _grid_gather_bwd)
-
-
-def _all_corner_indices(pos, cfg, level_offset=None, n_levels=None):
-    """Stack the 8 corners' (idx, w): -> (idx8 [8, B, L], w8 [8, B, L])."""
-    idxs, ws = [], []
-    for corner in range(8):
-        idx, w = _corner_index_weight_all_levels(
-            pos, corner, cfg, level_offset=level_offset, n_levels=n_levels
-        )
-        idxs.append(idx)
-        ws.append(w)
-    return jnp.stack(idxs), jnp.stack(ws)
-
-
 def hash_grid_lookup(
     pos: jnp.ndarray, params: HashGridParams, cfg: NetworkConfig
 ) -> jnp.ndarray:
     """Trilinear hash-grid features. pos: [..., 3] in roughly [0, 1]^3.
 
-    -> [..., n_levels * n_features]. Row gathers forward; one-hot MXU
-    matmul adjoint (``_grid_gather``); the sharded multi-host variant
+    -> [..., n_levels * n_features]. Eight row gathers forward; autodiff
+    gives the adjoint as a scatter-add into the table. The sharded variant
     (SURVEY P6) is ``sharded_hash_grid_lookup`` below.
     """
     n_levels, size, n_feat = params.table.shape
     lead = pos.shape[:-1]
     p2 = pos.reshape(-1, 3)
-    if not _use_onehot_adjoint(size):
-        # tiny tables / CPU: keep the plain autodiff scatter adjoint
-        flat = params.table.reshape(n_levels * size, n_feat)
-        level_ofs = jnp.arange(n_levels, dtype=jnp.int32) * size
-        acc = jnp.zeros((p2.shape[0], n_levels, n_feat), flat.dtype)
-        for corner in range(8):
-            idx, w = _corner_index_weight_all_levels(p2, corner, cfg)
-            acc = acc + w[..., None] * flat[idx + level_ofs]
-    else:
-        idx8, w8 = _all_corner_indices(p2, cfg)
-        acc = _grid_gather(params.table, idx8, w8)
+    flat = params.table.reshape(n_levels * size, n_feat)
+    level_ofs = jnp.arange(n_levels, dtype=jnp.int32) * size
+    acc = jnp.zeros((p2.shape[0], n_levels, n_feat), flat.dtype)
+    for corner in range(8):
+        idx, w = _corner_index_weight_all_levels(p2, corner, cfg)
+        acc = acc + w[..., None] * flat[idx + level_ofs]
     return acc.reshape(*lead, n_levels * n_feat)
 
 
@@ -357,14 +232,14 @@ def sharded_hash_grid_lookup(
     two collectives total:
 
     1. one ``all_gather`` of everyone's query positions — [D*B, 3] of f32
-       over ICI (positions, not per-corner indices: recomputing the hashes
-       locally is cheap VPU work and far less traffic);
+       (positions, not per-corner indices: recomputing the hashes locally
+       is cheap elementwise work and far less traffic);
     2. each device gathers features of ITS OWN levels for all D*B queries —
        dense unmasked gathers, perfectly balanced by construction (every
        chip does exactly D*B*8*(L/D) row gathers), O(B*8*L) global work.
-       The round-2 row-sharded design made every chip scan ALL D*B queries
-       x 8 corners x L levels against its row shard (O(D*B) per chip —
-       VERDICT r2 weak #3) and concentrated dense-level traffic on the
+       An earlier row-sharded design made every chip scan ALL D*B queries
+       x 8 corners x L levels against its row shard (O(D*B) per chip)
+       and concentrated dense-level traffic on the
        low-row owners; whole-level ownership removes both;
     3. one ``all_to_all`` transposes (owner-levels x all-queries) into
        (all-levels x own-queries) — [B, L*F] per chip, 4x less traffic
@@ -385,22 +260,15 @@ def sharded_hash_grid_lookup(
     my = jax.lax.axis_index(axis_name)
     b = pos.shape[0]
     gpos = jax.lax.all_gather(pos, axis_name, tiled=True)  # [D*B, 3]
-    if not _use_onehot_adjoint(size):
-        n = gpos.shape[0]
-        flat = params.table.reshape(lpd * size, n_feat)
-        level_ofs = jnp.arange(lpd, dtype=jnp.int32) * size
-        acc = jnp.zeros((n, lpd, n_feat), flat.dtype)
-        for corner in range(8):
-            idx, w = _corner_index_weight_all_levels(
-                gpos, corner, cfg, level_offset=my * lpd, n_levels=lpd
-            )
-            acc = acc + w[..., None] * flat[idx + level_ofs]
-    else:
-        idx8, w8 = _all_corner_indices(
-            gpos, cfg, level_offset=my * lpd, n_levels=lpd
+    n = gpos.shape[0]
+    flat = params.table.reshape(lpd * size, n_feat)
+    level_ofs = jnp.arange(lpd, dtype=jnp.int32) * size
+    acc = jnp.zeros((n, lpd, n_feat), flat.dtype)           # [D*B, lpd, F]
+    for corner in range(8):
+        idx, w = _corner_index_weight_all_levels(
+            gpos, corner, cfg, level_offset=my * lpd, n_levels=lpd
         )
-        # same gather-forward / one-hot-MXU-adjoint core as the dense path
-        acc = _grid_gather(params.table, idx8, w8)         # [D*B, lpd, F]
+        acc = acc + w[..., None] * flat[idx + level_ofs]
     # route: [D, B, lpd*F] blocks — send chip j its queries' features for
     # my levels; receive my queries' features for chip j's levels
     blocks = acc.reshape(d, b, lpd * n_feat)

@@ -1,6 +1,6 @@
 """Chiang-style hair BSDF (R / TT / TRT + residual), fully batched.
 
-TPU-native equivalent of MDL's ``df::chiang_hair_bsdf`` used by the
+Equivalent of MDL's ``df::chiang_hair_bsdf`` used by the
 reference's hair materials (``data/mdl/bsdf_hair.mdl``; fiber shading state
 built in ``__closesthit__curves``, ``hit.cu:1665-2046``). The model follows
 "A Practical and Controllable Hair and Fur Model for Production Path

@@ -1,9 +1,9 @@
-"""Lockstep 8-wide BVH traversal (TPU replacement for ``optixTrace``).
+"""Lockstep 8-wide BVH traversal (replacement for ``optixTrace``).
 
 EXACTLY one row gather per lane per step, from the unified node+leaf table
 (``bvh_wide`` ``rows``): a lane's ``pending`` address names either a wide
 node (slab-test all 8 children in one [N, 8] pass) or a leaf row
-(primitive-test leaf_size prims as [N, ls] vector math). The round-2
+(primitive-test leaf_size prims as [N, ls] vector math). An older
 layout paid TWO gathers per step (a node fetch inside visit() plus an
 unconditional leaf_pack fetch); gathers are per-row latency-bound, so
 unifying the tables halves the walk's dominant cost.
@@ -11,22 +11,22 @@ unifying the tables halves the walk's dominant cost.
 Children are sorted by actual slab entry distance at visit time
 (``sort8_by_key``, a 19-comparator Batcher network of full-width selects)
 — true per-ray ordered descent, which finds close hits sooner, shrinks
-``best_t``, and culls more subtrees than the round-2 octant-presorted
+``best_t``, and culls more subtrees than an octant-presorted
 static order (and removes the 8x octant replication of the node table).
 
-There are no per-lane scatter stacks (the trap that made the round-0
-vmapped-stack walk ~100x slower): the traversal stack is a dense
+There are no per-lane scatter stacks (which made an earlier
+vmapped-stack walk far slower): the traversal stack is a dense
 [N, D, 8] i32 array updated with one-hot selects over the static depth
-axis D (shape-carried from the build), which is plain VPU math. Per-lane
+axis D (shape-carried from the build), which is plain elementwise math. Per-lane
 state:
 
 - ``children`` [N, 8] i32: remaining child metas of the current node
   (NONE = visited/missed/empty), entry-distance sorted. meta >= 0 ->
   inner wide node; meta < 0 -> leaf row W + ~meta in the unified table.
 - ``stack`` [N, D, 8] + ``depth`` [N]: saved sibling sets.
-- ONE flat while loop (a nested two-phase descend/leaf structure measured
-  ~300 us of loop-re-entry + fusion-boundary overhead per leaf round — 60x
-  the cost of a unified step — and dominated the walk).
+- ONE flat while loop (a nested two-phase descend/leaf structure paid a
+  loop re-entry and fusion boundary per leaf round, which dominated the
+  walk on an earlier accelerator).
 
 Same coherence-sorted 2048-lane chunking as the binary path
 (``chunked_over_rays``): each chunk's while_loop exits at ITS slowest ray.
@@ -90,7 +90,7 @@ def _leaf_cone_t(c, pid, org, direction, tmin, cap):
     curve payload rows of ``curve_intersect.build_wide_curve_bvh``. Same
     quadratic + sphere-cap formulation as ``curve_intersect._roundcone_t``
     but laid out as full-width [N, ls] elementwise math (the triangle-leaf
-    playbook applied to hair; VERDICT r2 next #6). ``direction`` must be
+    playbook applied to hair). ``direction`` must be
     normalized (same contract as the binary curve walk)."""
     pax, pay, paz, bax, bay, baz, ra, rb, m0 = c
     dx = direction[:, 0:1]
@@ -170,7 +170,7 @@ _SORT_NETS = {8: _batcher_network(8), 16: _batcher_network(16)}
 def sort8_by_key(key, val):
     """Sort the B [N]-columns of ``val`` by ascending ``key`` ([N, B]
     each, B a power of 2) with a Batcher network (19 comparators at B=8)
-    — pure full-width VPU selects, no per-lane gathers. Masked entries
+    — pure full-width selects, no per-lane gathers. Masked entries
     must arrive with key=+inf and val already set to the caller's
     sentinel (they sort to the back)."""
     b = key.shape[1]
@@ -301,7 +301,7 @@ def _make_walk_parts(n: int, wb, any_hit: bool, leaf_test=_leaf_tri_t):
         if not _SKIP_LEAF:
             ls = leaf_size
             # component-major columns (bvh_wide layout): all leaf math is
-            # [N, ls] elementwise with full VPU rows
+            # [N, ls] elementwise with full-width rows
             c = [row[:, k * ls: (k + 1) * ls] for k in range(prim_row_w)]
             pid = row[
                 :, prim_row_w * ls: (prim_row_w + 1) * ls
@@ -390,14 +390,13 @@ def _wide_traverse(org, direction, wb, tmin, tmax, any_hit: bool,
     return t, prim
 
 
-# Persistent-wavefront refill driver (round 5): NRC_TRAVERSAL_REFILL = G
+# Persistent-wavefront refill driver: NRC_TRAVERSAL_REFILL = G
 # (> 0 enables). G rows of TRAVERSAL_CHUNK lanes step TOGETHER — one
 # [G*C]-index row gather per step, which runs at a far better per-index
-# rate than C-index gathers (BASELINE.md round-5 gather-rate curve) —
+# rate than C-index gathers on the accelerator it was written for —
 # and any row whose chunk has fully terminated retires its results and
 # REFILLS with the next pending chunk in the same step, so the lockstep
-# waste that made large monolithic chunks lose (512: 61 ms -> 8192: 80 ms
-# on the demo harness) never accrues. Refill cost is tiny by design: a
+# waste that made large monolithic chunks lose there never accrues. Refill cost is tiny by design: a
 # fresh row only needs children/scalars reset — the sibling STACK is
 # write-before-read for a fresh lane (pushes at depth d always precede
 # the pop that reads d), so stale stack contents from the previous chunk

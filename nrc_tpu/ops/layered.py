@@ -1,6 +1,6 @@
 """Two-lobe layered/mixed/modified BSDFs, fully batched.
 
-TPU-native replacement for MDL's BSDF *combinators* — the node graphs the
+Replacement for MDL's BSDF *combinators* — the node graphs the
 reference JIT-compiles per material (``df::weighted_layer``,
 ``color_weighted_layer``, ``fresnel_layer``, ``measured_curve_layer``,
 ``normalized/clamped/unbounded_mix`` and their color variants, and the
@@ -80,7 +80,6 @@ def _curve_lookup(curve: jnp.ndarray, cos_t: jnp.ndarray) -> jnp.ndarray:
     i1 = jnp.minimum(i0 + 1, k - 1)
     f = (x - i0.astype(jnp.float32))[..., None]
     # one-hot picks, not per-lane gathers (utils.math.pick1): K is small
-    # and TPU gathers cost ~15 ns/index regardless of width
     from ..utils.math import pick1
 
     return pick1(curve, i0) * (1.0 - f) + pick1(curve, i1) * f

@@ -1,11 +1,11 @@
 """Measured-BSDF evaluation / sampling / pdf on device (JAX, batched).
 
-TPU-native port of the reference's MBSDF device runtime
+Port of the reference's MBSDF device runtime
 (``df_bsdf_measurement_evaluate/sample/pdf/albedos``,
 ``nrc/shaders/texture_lookup.h:887-1253``): the CUDA 3D texture with
 normalized coords + linear filtering becomes an explicit trilinear
 gather+lerp over the stacked scene tables; the per-thread binary CDF
-searches become vectorized compare-and-sum over the [R]/[P] rows on the VPU.
+searches become vectorized compare-and-sum over the [R]/[P] rows elementwise.
 
 Angle convention (matches the reference): directions as (theta, phi) in the
 local shading frame, theta in [0, pi/2] measured from the surface normal of

@@ -1,11 +1,11 @@
-"""Procedural 3D noise fields evaluated AT SHADE TIME (pure VPU math).
+"""Procedural 3D noise fields evaluated AT SHADE TIME (pure elementwise math).
 
 The reference's ``noise_*_glossy.mdl`` materials drive their diffuse tint
 (and a bump) through the MDL base module's procedural noises —
 ``base::perlin_noise_texture`` / ``flow_noise_texture`` /
 ``worley_noise_texture`` over WORLD-space coordinates
 (``data/mdl/noise_perlin_glossy.mdl``; evaluated by MDL-JIT-generated
-device code in the reference). TPU-native equivalent: evaluate the noise
+device code in the reference). Here: evaluate the noise
 directly in the wavefront shader — position-driven elementwise math, no
 tables, no gathers.
 

@@ -1,11 +1,10 @@
 """Device texture lookups: software bilinear/trilinear fetch from the atlas.
 
-TPU-native replacement for CUDA texture objects + the MDL texture runtime's
+Replacement for CUDA texture objects + the MDL texture runtime's
 ``tex_lookup_float4_2d`` (``nrc/shaders/texture_lookup.h``): wrap-repeat
 addressing, bilinear filtering, optional mip level — implemented as masked
-gathers from the flat atlas (``nrc_tpu/scene/texture.py``). Gathers are VPU
-(8,128)-lane loads; for wavefront batches the four corner fetches fuse into
-the surrounding shading code under jit.
+gathers from the flat atlas (``nrc_tpu/scene/texture.py``); for wavefront
+batches the corner fetches fuse into the surrounding shading code under jit.
 
 ``tex_id`` rows with -1 return white (1,1,1,1), which lets material code
 multiply unconditionally instead of branching (no divergence)."""
@@ -50,8 +49,7 @@ def sample_bilinear(atlas: dict, tex_id: jnp.ndarray, uv: jnp.ndarray,
     if "texels_quad" in atlas:
         # production path: each row holds the texel's own wrap-neighbor
         # quad (scene/texture.py::_quad_maps), so ALL four bilinear corners
-        # ride ONE row gather — TPU gathers cost ~15 ns/index regardless of
-        # width, and the demo frame ran ~40 corner gathers per band
+        # ride ONE row gather instead of four
         idx = jnp.where(has, off + iy0 * w + ix0, 0)  # texel 0 = white
         q = atlas["texels_quad"][idx]                 # [N, 16]
         c00 = q[..., 0:4]

@@ -1,6 +1,6 @@
 """Multi-chip scaling: the frame step under ``shard_map`` on a device Mesh.
 
-TPU-native replacement for the reference's single-node multi-GPU machinery
+Replacement for the reference's single-node multi-GPU machinery
 (SURVEY.md §2.5): NVML topology discovery + ``cuCtxEnablePeerAccess`` islands
 (``Raytracer.cpp:264-458``), checkerboard tile distribution
 (``__raygen__path_tracer_local_copy``), and the P2P compositor
@@ -53,8 +53,8 @@ def net_state_specs(net_state, shard_hash_tables: bool):
     Dense MLP params/moments are replicated (P5 data-parallel training).
     With ``shard_hash_tables`` (SURVEY P6), every [L, S, F] hash-table leaf —
     table, its EMA, and its Adam moments — is LEVEL-sharded over the data
-    axis (each chip owns L/D whole resolution levels): the TPU-native
-    HBM-embedding-table layout the reference's single-GPU tcnn grid cannot
+    axis (each device owns L/D whole resolution levels): the sharded
+    embedding-table layout the reference's single-GPU tcnn grid cannot
     express. Lookups run the owner-routed all_gather + all_to_all exchange
     of ``encodings.sharded_hash_grid_lookup`` — O(B) gather work per chip.
     """

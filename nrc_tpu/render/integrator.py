@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator with NRC training-data emission.
 
-The TPU-native redesign of the reference's OptiX megakernel
+The Redesign of the reference's OptiX megakernel
 (``__raygen__nrc_path_tracer`` + ``nrcIntegrator`` loop,
 ``nrc/shaders/raygeneration.cu:139-289``, and ``__closesthit__radiance``,
 ``nrc/shaders/hit.cu:672-1064``): instead of per-thread divergent control
@@ -147,9 +147,9 @@ def trace_wavefront(
     import os as _os2
 
     closest_hit, any_hit = make_intersectors(scene.tris, scene.bvh)
-    # Opt-in (measured a NET LOSS on the demo scene, +8%: its shadow rays
-    # mostly DO find a cutout prim, so the pre-pass rarely resolves and
-    # its walk is pure overhead — BASELINE.md round-5 shadow-lever sweep):
+    # Opt-in (a net loss on a cutout-heavy scene on an earlier accelerator:
+    # its shadow rays mostly DO find a cutout prim, so the pre-pass rarely
+    # resolves and its walk is pure overhead):
     anyhit_prim = (
         make_anyhit_prim(scene.tris, scene.bvh)
         if cfg.has_cutout
@@ -169,29 +169,15 @@ def trace_wavefront(
     direct_lighting = cfg.direct_lighting and num_lights > 0
     eps = cfg.scene_epsilon
 
-    MATROW_ONEHOT = _os2.environ.get("NRC_MATROW_ONEHOT", "1") == "1"
-    # ---- merged per-material row fetch (round 4) -----------------------
-    # The shade path used to issue up to ~17 separate per-field gathers by
-    # the same material id per bounce; TPU gathers cost ~15 ns/index
-    # regardless of width (BASELINE.md round-4 gather study), so they now
-    # ride ONE row. For small tables the row fetch is a one-hot MXU matmul
-    # (~0.4 us per 8192-lane band vs ~123 us for the gather): the one-hot
-    # has exactly one 1.0 per row, so the f32 contraction is exact.
+    # ---- merged per-material row fetch ---------------------------------
+    # Every material field rides ONE row (``scene.mat_row``), fetched by a
+    # plain gather: exact, and on the GPU faster than the one-hot matmul
+    # it replaced.
     from .scene_device import mat_row_layout
 
     _mat_offs, _ = mat_row_layout(scene.mat_curve.shape[1])
-    _num_mats = scene.mat_row.shape[0]
 
     def fetch_mat_row(mid):
-        if _num_mats <= 256 and MATROW_ONEHOT:
-            oh = (
-                mid[:, None] == jnp.arange(_num_mats, dtype=mid.dtype)
-            ).astype(jnp.float32)
-            # HIGH = 3xbf16 passes: exact for a one-hot contraction (the
-            # f32 operand splits exactly into 3 bf16 terms; 0-terms exact)
-            return jax.lax.dot(
-                oh, scene.mat_row, precision=jax.lax.Precision.HIGH
-            )
         return scene.mat_row[mid]
 
     def mcol(row, nm):
@@ -247,7 +233,7 @@ def trace_wavefront(
             scene.lights.material_id >= 0, scene.mat_emission_tex[l_mid], -1
         )
         # ONE [L, 7] row (tex id as f32 | uv transform) — the sampler pays
-        # a single gather for the textured-EDF context (round 4)
+        # a single gather for the textured-EDF context
         nee_tex_ctx = (
             scene.atlas,
             jnp.concatenate(
@@ -386,8 +372,8 @@ def trace_wavefront(
         w_bary = 1.0 - hit.u - hit.v
         p_hit = s.pos + hit.t[..., None] * s.wi
         # ONE tri_shade row gather for ALL the hit's triangle-side inputs
-        # (geometry edges, shading normals, texcoords, meta); round 3 paid
-        # 3-4 same-index gathers here at ~15 ns/index each
+        # (geometry edges, shading normals, texcoords, meta) instead of 3-4
+        # same-index gathers
         tsr = scene.tri_shade[tri]                       # [N, 26]
         e1 = tsr[..., 3:6]
         e2 = tsr[..., 6:9]
@@ -422,7 +408,7 @@ def trace_wavefront(
         if cfg.has_noise:
             # procedural noise tint at the WORLD hit position
             # (base::perlin/flow/worley_noise_texture driving the diffuse
-            # tint — noise_*_glossy.mdl; ops/noise.py, shade-time VPU
+            # tint — noise_*_glossy.mdl; ops/noise.py, shade-time elementwise math
             # math); noise_target routes it to the lobe whose diffuse the
             # MDL graph tinted (the shipped materials: base of a
             # fresnel/weighted layer = lobe 2)
@@ -942,7 +928,7 @@ def trace_wavefront(
                     u_sh_hops.append(u_h)
                 u_sh_hops = jnp.stack(u_sh_hops)             # [3, N]
 
-                # Fast path (round 5): ONE any-hit pre-pass resolves the
+                # Fast path: ONE any-hit pre-pass resolves the
                 # two common cases without any closest-hit hop round —
                 # no primitive on the ray (visible) or an arbitrary found
                 # primitive whose material cannot be cut out (occluded:
@@ -1100,7 +1086,7 @@ def trace_wavefront(
                 if has_cutout else s.pass_dist
             ),
             # work events this bounce: surface hits, cutout passthroughs,
-            # volume scatter steps (the TPU analog of USE_TIME_VIEW clocks)
+            # volume scatter steps (the analog of USE_TIME_VIEW clocks)
             bounces=s.bounces
             + (hit_valid | passthrough | scatter_miss).astype(jnp.int32),
             traced=s.traced + active.astype(jnp.int32) + shadow_traced,
@@ -1119,13 +1105,13 @@ def trace_wavefront(
     # while_loop that exits as soon as every lane has terminated. In FULL
     # mode the area-spread heuristic truncates most paths into the cache
     # within 1-2 bounces, so the loop typically runs far fewer than
-    # ``max_depth`` iterations — the TPU analog of the megakernel simply
+    # ``max_depth`` iterations — the analog of the megakernel simply
     # having no threads left. The bounce body contains no collectives, so
     # per-shard divergent trip counts are safe under shard_map.
     state = bounce(state, True, np.int32(0))
     if cfg.max_depth >= 1 and queue_band is not None and n > queue_band:
         # ---- compacted ray queue (large wavefronts) ---------------------
-        # Bounce cost on TPU is width-proportional regardless of activity,
+        # Bounce cost is width-proportional regardless of activity,
         # so after the coherent primary bounce the surviving rays are
         # PARTITION-COMPACTED to the front (stable: preserves spatial
         # order -> traversal-chunk coherence) and only the first
@@ -1196,7 +1182,7 @@ def _queued_once_depth_loop(state: _State, bounce, cfg: FrameConfig,
     moves the surviving ~quarter of lanes to the front and depths >= 2 run
     over that frozen prefix only — paying the full-state permute a single
     time where ``_queued_depth_loop`` pays it every depth (the cost that
-    made per-depth compaction a net loss, BASELINE.md round-4 A/B).
+    made per-depth compaction a net loss in an earlier A/B).
     Alive lanes only ever die, so the prefix stays valid.
 
     ``recompact_depth`` > 0 adds ONE more partition when the loop reaches
@@ -1326,7 +1312,8 @@ def _queued_depth_loop(state: _State, bounce, cfg: FrameConfig, band: int):
     return jax.tree.map(lambda x: x[inv], state)
 
 
-# Bounce-loop cost on TPU is activity-independent: every masked-select op
+# A masked lockstep bounce loop costs the same whatever its activity: every
+# masked-select op
 # processes every lane, and the while_loop runs until the LAST path in the
 # whole wavefront terminates — a 320x320 FULL-mode frame runs ~6 full-width
 # iterations even though the area-spread heuristic truncates most paths
@@ -1338,23 +1325,18 @@ def _queued_depth_loop(state: _State, bounce, cfg: FrameConfig, band: int):
 # separately so fusion/FMA choices differ at the last bit).
 #
 # Wavefront layout choices for large wavefronts, all parity-pinned by
-# TestChunkedWavefront (round-4 A/B on the real chip, FULL + train, warm):
+# TestChunkedWavefront. They were chosen by A/B on an earlier accelerator
+# and are not yet re-measured on the GPU, nor is WAVEFRONT_CHUNK:
 #
 # - BANDED (lax.map over contiguous pixel-band chunks; each chunk's bounce
-#   while_loop exits at ITS deepest path). Round-3's per-depth compacted
-#   queue silently cost the headline Cornell bench 42% (VERDICT r3 weak
-#   #1); the banded layout restored it (Cornell 320^2: 12.6 vs 7.3 fps;
-#   demo 720p: 5507 vs 6353 ms — the round-2 queue win was an artifact of
-#   the old slow walk).
-# - COMPACT-ONCE (round 4, the production default for wide-BVH scenes):
-#   depths 0-1 run full width (every lane bounces at least once), then ONE
-#   stable partition moves the ~quarter of surviving lanes to the front
-#   and depths >= 2 advance a frozen ceil(alive/band) prefix. One permute
-#   buys the queue's dead-lane savings without its per-depth permute tax:
-#     demo 640x360  1213 -> 888 ms   demo 1280x720  4597 -> 3009 ms
-#     demo shipped  2408 -> 1866 ms  Cornell 320^2  ~67 -> 68.7 ms (tied)
-#   Cornell's cheap bounces gain nothing, so small scenes (no wide BVH)
-#   keep the banded layout.
+#   while_loop exits at ITS deepest path): the small-scene default; a
+#   per-depth compacted queue lost to it there.
+# - COMPACT-ONCE (the default for wide-BVH scenes): depths 0-1 run full
+#   width (every lane bounces at least once), then ONE stable partition
+#   moves the surviving lanes to the front and depths >= 2 advance a frozen
+#   ceil(alive/band) prefix. One permute buys the queue's dead-lane savings
+#   without its per-depth permute tax. Small scenes' cheap bounces gained
+#   nothing from it, so they keep the banded layout.
 #
 # NRC_WAVEFRONT_QUEUE: auto (default) | 0 = banded | 1 = per-depth queue
 # | once = compact-once everywhere.

@@ -55,7 +55,6 @@ class Renderer:
         adaptive_tiles: bool = True,
         position_scale: Optional[float] = None,
         seed: int = 0,
-        use_fused_mlp: bool = False,
         reflectance_factoring: bool = False,
     ):
         self.scene = scene
@@ -124,15 +123,6 @@ class Renderer:
             nee_rr_tau=float(os.environ.get("NRC_NEE_RR_TAU", "0.0")),
         )
 
-        # Fused Pallas MLP (tiny-cuda-nn equivalent): 23% faster than the XLA
-        # path on large standalone query batches, but inside the fused frame
-        # program the custom-call boundary costs more than it saves — so it
-        # is opt-in here and the default for the standalone cache service.
-        if use_fused_mlp and jax.devices()[0].platform == "tpu":
-            from ..ops.mlp_pallas import make_mlp_impl
-
-            N.set_mlp_impl(make_mlp_impl())
-
         self.net_state = N.init_network(jax.random.PRNGKey(seed), self.net_cfg)
         self.image = jnp.zeros((w * h, 3), jnp.float32)
         self.iteration = 0
@@ -145,8 +135,7 @@ class Renderer:
         self._step_cache = {}
         # tiled primary-visibility raster (ops/raster_primary.py): replaces
         # the depth-0 BVH walk with dense per-screen-tile tests for big
-        # pinhole scenes (the primary walk measured 404 ms of the demo
-        # 720p frame). Bins depend on the camera; rebuilt lazily on move.
+        # pinhole scenes. Bins depend on the camera; rebuilt lazily on move.
         self._raster_meta = None
         self._raster_data = None
         self._raster_cam = None

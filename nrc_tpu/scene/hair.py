@@ -4,8 +4,8 @@ Replaces the reference's ``Hair`` class (``nrc/inc/Hair.h:64-137``,
 ``nrc/src/Hair.cpp``) and ``sg::Curves::createHair``
 (``nrc/src/Curves.cpp:104-315``). The reference converts strands to cubic
 B-splines with phantom endpoints and lets OptiX's built-in curve primitive
-intersect them per-thread. TPUs have no RT cores and no divergent
-per-thread root-finding, so the TPU-native shape is: evaluate the same
+intersect them per-thread. Without RT cores and divergent per-thread
+root-finding, the wavefront shape is: evaluate the same
 uniform cubic B-spline on the host, tessellate to *rounded-cone segments*
 (linear swept spheres) in SoA layout, and intersect those analytically in a
 batched kernel (``ops/curve_intersect.py``). With 2-4 subsegments per

@@ -1,6 +1,6 @@
 """IESNA LM-63 photometric file loader + goniometric texture builder.
 
-TPU-native equivalent of the reference's ``LoaderIES`` (LM-63-86/91/95/02
+Equivalent of the reference's ``LoaderIES`` (LM-63-86/91/95/02
 parser, ``nrc/inc/LoaderIES.h:38-160``, ``nrc/src/LoaderIES.cpp``) and
 ``Picture::createIES`` (symmetry expansion + omnidirectional projection
 texture, ``nrc/src/Picture.cpp:1330-1454``). The result is a single-channel

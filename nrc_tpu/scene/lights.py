@@ -156,8 +156,7 @@ def build_alias_table(weights: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     O(1) discrete sampling on device: ``i = floor(u*N); take alias[i] if
     frac >= prob[i]``. This replaces the reference's per-sample binary search
     over CDFs (``light_sample.cu:74-80`` notes the memory-traffic problem) —
-    a gather of 2 values instead of log2(N) dependent loads, which is the
-    TPU-friendly (and GPU-friendlier) choice.
+    a gather of 2 values instead of log2(N) dependent loads.
     """
     w = np.asarray(weights, np.float64).ravel()
     n = w.size
@@ -169,9 +168,8 @@ def build_alias_table(weights: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     p = np.ascontiguousarray(w * (n / total))
 
     # native Vose pairing (nrc_native.c::alias_table_build) — the Python
-    # loop below measured ~0.8 s per 2M-texel env row set (8.4 s of the
-    # demo scene's host build); the C path is ~10 ms and bit-identical
-    # (same LIFO stack order)
+    # loop below is orders of magnitude slower on a 2M-texel env map; the
+    # C path is bit-identical (same LIFO stack order)
     from ..native import get_lib
 
     lib = get_lib()

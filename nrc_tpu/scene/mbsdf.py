@@ -1,6 +1,6 @@
 """Measured BSDFs: loading, sampling-data construction, device tables.
 
-TPU-native equivalent of the reference's MBSDF pipeline
+Equivalent of the reference's MBSDF pipeline
 (``Device::prepareMBSDF`` / ``prepare_mbsdfs_part``,
 ``nrc/src/Device.cpp:3347-3663``): an isotropic measured BSDF is a grid
 ``[theta_in, theta_out, phi_delta]`` of scalar or RGB values per part

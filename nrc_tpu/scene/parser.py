@@ -91,7 +91,7 @@ def parse_system_description(path: str) -> SystemConfig:
     while not ts.eof():
         kw = ts.next()
         if kw == "strategy":
-            ts.next_int()  # accepted, ignored (TPU: sharding handles this)
+            ts.next_int()  # accepted, ignored (sharding handles this)
         elif kw == "devicesMask":
             cfg.devices_mask = ts.next_int()
         elif kw == "arenaSize":

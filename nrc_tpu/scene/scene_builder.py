@@ -1,14 +1,14 @@
 """Scene assembly: parsed description -> flat SoA device-ready arrays.
 
-The TPU equivalent of the reference's scene upload path:
+The equivalent of the reference's scene upload path:
 ``Raytracer::initScene`` -> ``traverseNode`` geometry dedup/flatten
 (``nrc/src/Raytracer.cpp:574-621,883-1025``) + ``Device::createGeometry`` /
 ``createTLAS`` / ``createGeometryInstanceData`` (``Device.cpp:1845-2253``)
 + ``Application::createMeshLights`` (``Application.cpp:2079-2238``).
 
-Rather than a two-level BVH with per-instance GAS sharing, round 1 bakes
-instance transforms into one flat world-space triangle soup (ideal for the
-brute-force MXU intersector and the single-level BVH); instancing-aware
+Rather than a two-level BVH with per-instance GAS sharing, the builder
+bakes instance transforms into one flat world-space triangle soup (what
+the brute-force intersector and the single-level BVH take); instancing-aware
 traversal can layer on later without changing this interface.
 """
 
@@ -480,12 +480,9 @@ def _equirect_from_cube(cube: np.ndarray, height: int = 0) -> np.ndarray:
         ],
         axis=-1,
     ).reshape(-1, 3)
-    import jax
-
     from ..ops.texture import sample_cube_env
 
-    with jax.default_device(jax.devices("cpu")[0]):
-        out = np.asarray(sample_cube_env(cube, d.astype(np.float32)))
+    out = np.asarray(sample_cube_env(cube, d.astype(np.float32)))
     return out.reshape(h, w, 3).astype(np.float32)
 
 

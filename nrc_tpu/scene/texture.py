@@ -1,9 +1,10 @@
 """Host texture subsystem: image loading, mip pyramids, flat texture atlas.
 
-TPU-native replacement for the reference's DevIL-based ``Picture`` loader and
+Replacement for the reference's DevIL-based ``Picture`` loader and
 CUDA-array ``Texture`` objects (``nrc/src/Picture.cpp``, ``nrc/src/Texture.cpp:44-693``,
 upload ``nrc/src/Device.cpp:3014-3283``). CUDA texture objects (hardware
-bilinear fetch, sRGB conversion, wrap modes) do not exist on TPU; instead all
+bilinear fetch, sRGB conversion, wrap modes) are not reachable from a jitted
+JAX program; instead all
 textures are packed into ONE flat ``[total_texels, 4]`` float32 array plus
 per-(texture, mip-level) descriptor rows, and lookups are software bilinear
 gathers inside the jitted wavefront (``nrc_tpu/ops/texture.py``). Static
@@ -176,10 +177,9 @@ class TextureAtlas:
             "tex_num_levels": pad1(self.tex_num_levels, 1),
             # QUAD atlas: each row holds the texel's own wrap-neighbor 2x2
             # window [T(y,x)|T(y,x+1)|T(y+1,x)|T(y+1,x+1)], so a bilinear
-            # fetch is ONE row gather instead of four (TPU gathers cost
-            # ~15 ns/index regardless of width). Built HOST-side: a
-            # device-side gather-derive compiled for ~10 min on XLA:TPU
-            # (million-index gather programs compile pathologically).
+            # fetch is ONE row gather instead of four. Built HOST-side: a
+            # device-side gather-derive compiled pathologically slowly on
+            # an earlier accelerator (million-index gather programs).
             "texels_quad": self._quad_texels(),
         }
 

@@ -1,23 +1,10 @@
 """Host->device upload boundary for staged-numpy pytrees.
 
-The scene/network upload paths stage everything in HOST numpy and convert
-wholesale here (one ``jax.device_put`` over the whole tree: per-leaf
+The scene upload path stages everything in HOST numpy and converts it
+wholesale here: one ``jax.device_put`` over the whole tree, whose per-leaf
 transfers issue asynchronously and overlap, with no per-leaf Python round
-trips in between).
-
-Round-4 measurement note (why this is NOT a packed single-buffer
-transfer): an earlier design concatenated all leaves into one buffer per
-dtype and unpacked with a jitted all-static-slices program — transfer
-count dropped to ~3, but XLA:TPU took ~330-390 s to COMPILE the unpack
-program for the demo scene's layout (~100 slices of a ~50M-element 1-D
-buffer; tile-misaligned offsets), dwarfing everything it saved. Plain
-per-leaf ``device_put`` measured ~0.01 s dispatch for the whole Cornell
-scene (transfers complete asynchronously) and is bandwidth-bound on big
-scenes, which is the floor either way. The real upload costs were
-elsewhere and are fixed at their sources: duplicate packed-gather arrays
-are now DERIVED on device (``render/scene_device.py::_derive_packed``)
-and network init runs on the host CPU backend
-(``models/network.py::init_network``).
+trips in between. Arrays that merely duplicate others are derived on
+device instead (``render/scene_device.py::_derive_packed``).
 """
 
 from __future__ import annotations

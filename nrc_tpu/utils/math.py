@@ -1,6 +1,6 @@
 """Vector math, orthonormal bases, spherical mappings, MIS heuristics.
 
-TPU-native (batched, SoA ``jnp`` arrays of shape [..., 3]) equivalents of the
+Batched ( SoA ``jnp`` arrays of shape [..., 3]) equivalents of the
 reference's scalar device helpers:
 - ``nrc/shaders/shader_common.h`` (TBN, alignVector, unitSquare mappings,
   balance/power heuristics, cartesianToSphericalUnitVector)
@@ -11,9 +11,13 @@ All functions are shape-polymorphic over leading batch dims and jit-safe.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 M_PI = float(jnp.pi)
+# f32 mat-vecs keep full precision on the GPU, where a plain f32 product
+# may round its operands to TF32
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def dot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
@@ -71,7 +75,7 @@ def align_vector(axis: jnp.ndarray, w: jnp.ndarray) -> jnp.ndarray:
 def build_onb(n: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Orthonormal basis (t, b) around unit normal n, batched.
 
-    Duff et al. branchless ONB — the TPU-friendly replacement for the
+    Duff et al. branchless ONB — the branch-free replacement for the
     reference's ``TBN`` constructor (``shader_common.h``).
     """
     sign = jnp.where(n[..., 2] >= 0.0, 1.0, -1.0)
@@ -146,23 +150,23 @@ def transform_point(mat: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Apply affine 3x4 (or 4x4) matrix rows to points, batched."""
     r = mat[..., :3, :3]
     t = mat[..., :3, 3]
-    return jnp.einsum("...ij,...j->...i", r, p) + t
+    return jnp.einsum("...ij,...j->...i", r, p, precision=HIGHEST) + t
 
 
 def transform_vector(mat: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     r = mat[..., :3, :3]
-    return jnp.einsum("...ij,...j->...i", r, v)
+    return jnp.einsum("...ij,...j->...i", r, v, precision=HIGHEST)
 
 
 # ---------------------------------------------------------------------------
-# One-hot per-lane pick/put over a SMALL minor axis (round 4).
+# One-hot per-lane pick/put over a SMALL minor axis.
 #
-# ``x[rows, idx]`` / ``x.at[rows, idx].set(v)`` lower to XLA gather/scatter,
-# which on TPU run a fixed-rate per-index machine (~15 ns/index measured,
-# BASELINE.md round-4 gather study) — ~120 us per 8192-lane band EACH. For
-# a minor axis of K <= ~16 entries (medium stacks, record slots, blend
+# ``x[rows, idx]`` / ``x.at[rows, idx].set(v)`` lower to XLA gather/scatter.
+# For a minor axis of K <= ~16 entries (medium stacks, record slots, blend
 # curve knots) a one-hot select/sum is exact (one selected term + exact
-# zeros) and pure full-width VPU math: K*[N,C] ops, ~100x cheaper.
+# zeros) and pure full-width elementwise math: K*[N,C] ops. It was far
+# cheaper than the gather on an earlier accelerator; not yet re-measured on
+# the GPU.
 # ---------------------------------------------------------------------------
 
 

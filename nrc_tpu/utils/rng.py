@@ -5,7 +5,7 @@ Bit-exact, vectorized port of the reference's per-thread generator
 (pixel_index, subframe_index) seeds a 32-bit LCG whose upper 24 bits give
 uniform floats in [0, 1).
 
-On TPU this runs as pure uint32 VPU arithmetic over the whole ray batch —
+This runs as pure uint32 elementwise arithmetic over the whole ray batch —
 each ray carries its ``seed`` as part of the SoA wavefront state, exactly
 like ``PerRayData::seed`` in the reference, so sample streams match the
 reference's consumption order per ray.

@@ -3,7 +3,7 @@
 The reference implements the same formula twice — a GLSL fragment shader
 (``nrc/src/Rasterizer.cpp:548-577``) and a CPU loop for screenshots
 (``nrc/src/Application.cpp:2596-2645``). Here it is once, vectorized over
-the whole HDR image; runs on TPU or CPU under jit.
+the whole HDR image; runs on any JAX device under jit.
 """
 
 from __future__ import annotations

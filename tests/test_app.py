@@ -2,6 +2,7 @@
 network checkpoint/resume round-trip (a capability the reference lacks,
 SURVEY.md §5)."""
 
+import os
 import jax
 import numpy as np
 
@@ -9,6 +10,10 @@ from nrc_tpu.app.cli import build_parser
 from nrc_tpu.config import InputEncoding, NetworkConfig
 from nrc_tpu.models import network as N
 from nrc_tpu.models.checkpoint import load_checkpoint, save_checkpoint
+
+CORNELL = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "cornell"
+)
 
 
 class TestCLIParser:
@@ -72,8 +77,8 @@ class TestRenderStateCheckpoint:
         from nrc_tpu.scene.scene_builder import load_scene
 
         scene, system = load_scene(
-            "/root/reference/data/system_mdl_cornell.txt",
-            "/root/reference/data/scene_mdl_cornell.txt",
+            f"{CORNELL}/system_mdl_cornell.txt",
+            f"{CORNELL}/scene_mdl_cornell.txt",
         )
         system.resolution = (16, 16)
         system.tile_size = (8, 8)
@@ -118,7 +123,7 @@ class TestLiveEncodingSwitch:
         from nrc_tpu.render.renderer import Renderer
         from nrc_tpu.scene.scene_builder import load_scene
 
-        ref = "/root/reference/data"
+        ref = CORNELL
         scene, system = load_scene(
             f"{ref}/system_mdl_cornell.txt", f"{ref}/scene_mdl_cornell.txt"
         )

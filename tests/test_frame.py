@@ -5,6 +5,7 @@ These are the build's equivalent of the reference's implicit oracles
 Full-mode images approaching the NoCache reference.
 """
 
+import os
 import dataclasses
 
 import jax
@@ -20,7 +21,9 @@ from nrc_tpu.render.frame import (
 from nrc_tpu.render.renderer import Renderer
 from nrc_tpu.scene.scene_builder import load_scene
 
-REF = "/root/reference/data"
+REF = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "cornell"
+)
 
 
 @pytest.fixture(scope="module")

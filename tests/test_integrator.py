@@ -1,6 +1,7 @@
-"""Wavefront integrator tests on the reference Cornell scene (NO_CACHE mode
+"""Wavefront integrator tests on the repository's Cornell scene (NO_CACHE mode
 is the unbiased oracle; training wavefront record semantics)."""
 
+import os
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +14,9 @@ from nrc_tpu.scene.camera import generate_primary_rays
 from nrc_tpu.scene.scene_builder import load_scene
 from nrc_tpu.utils import rng as R
 
-REF = "/root/reference/data"
+REF = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "cornell"
+)
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,6 @@
 """Intersection tests: brute force vs BVH parity, shadow rays, Cornell scene."""
 
+import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +13,10 @@ from nrc_tpu.ops.intersect import (
     intersect_bvh,
     occluded_bruteforce,
     occluded_bvh,
+)
+
+CORNELL = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "cornell"
 )
 
 
@@ -144,8 +149,8 @@ class TestCornell:
         from nrc_tpu.scene.camera import generate_primary_rays
 
         scene, system = load_scene(
-            "/root/reference/data/system_mdl_cornell.txt",
-            "/root/reference/data/scene_mdl_cornell.txt",
+            f"{CORNELL}/system_mdl_cornell.txt",
+            f"{CORNELL}/scene_mdl_cornell.txt",
         )
         tris = TriSoA.build(scene.p0, scene.p1, scene.p2)
         p, u, v, w = scene.camera.frustum()

@@ -181,7 +181,8 @@ class TestSplitU16Rows:
         """The u16 half-table layout (bvh_wide.split_rows_u16) must produce
         BIT-identical hits: the reconstruct is an exact bitcast round trip.
         (Kept as a capability: faster gathers in isolation, slower inside
-        the walk's while body on TPU — see scene_device.upload_scene.)"""
+        the walk's while body on an earlier accelerator — see
+        scene_device.upload_scene.)"""
         from nrc_tpu.ops.bvh_wide import build_wide_bvh, split_rows_u16
         from nrc_tpu.ops.intersect_wide import _chunked_wide
 

@@ -1,6 +1,7 @@
 """Observability parity (SURVEY.md §5): time-view bounce AOV + color ramp,
 system-description save/reload, loss ring buffer."""
 
+import os
 import numpy as np
 import jax.numpy as jnp
 
@@ -9,7 +10,9 @@ from nrc_tpu.render.renderer import Renderer
 from nrc_tpu.scene.scene_builder import load_scene
 from nrc_tpu.utils.tonemap import time_view_ramp
 
-REF = "/root/reference/data"
+REF = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "cornell"
+)
 
 
 def _cornell(res=32, tile=8):

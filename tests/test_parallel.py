@@ -1,6 +1,7 @@
 """Multi-chip tests on the virtual 8-device CPU mesh: render parity with the
 single-chip program, sharded training step, stats reduction."""
 
+import os
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +12,9 @@ from nrc_tpu.parallel.shard import ParallelRenderer, make_mesh, sharded_frame_st
 from nrc_tpu.render.renderer import Renderer
 from nrc_tpu.scene.scene_builder import load_scene
 
-REF = "/root/reference/data"
+REF = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "cornell"
+)
 
 
 @pytest.fixture(scope="module")

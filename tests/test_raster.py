@@ -5,6 +5,7 @@ tests over conservative candidate sets — winners must be identical to the
 brute-force/BVH answer for every pixel (same triangle test, superset
 candidates)."""
 
+import os
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -17,6 +18,10 @@ from nrc_tpu.ops.raster_primary import (
     raster_closest_hit,
 )
 from nrc_tpu.scene.camera import generate_primary_rays
+
+CORNELL = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "cornell"
+)
 
 
 def _soup(T, seed, spread=0.3, lo=-2.0, hi=2.0):
@@ -112,14 +117,14 @@ class TestRasterInFrame:
 
         scene_file = tmp_path / "scene.txt"
         base = open(
-            "/root/reference/data/scene_mdl_cornell.txt"
+            f"{CORNELL}/scene_mdl_cornell.txt"
         ).read()
         scene_file.write_text(
             base + "\npush\nscale 3 3 3\ntranslate 0 -3 0\n"
             "model sphere 180 90 1 bsdf_diffuse_reflection_c_red\npop\n"
         )
         scene, system = load_scene(
-            "/root/reference/data/system_mdl_cornell.txt", str(scene_file)
+            f"{CORNELL}/system_mdl_cornell.txt", str(scene_file)
         )
         system.resolution = (64, 48)
         scene.camera.aspect = 64 / 48

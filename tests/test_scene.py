@@ -1,6 +1,7 @@
 """Scene layer tests: parser, MDL reader, geometry, scene build on the
-reference's own Cornell data files."""
+repository's Cornell data files (data/cornell/)."""
 
+import os
 import numpy as np
 import pytest
 
@@ -15,7 +16,46 @@ from nrc_tpu.scene.parser import (
 )
 from nrc_tpu.scene.scene_builder import load_scene
 
-REF = "/root/reference/data"
+REF = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "cornell"
+)
+
+# MDL in the grammar of the reference's sample materials
+GGX_MDL = """mdl 1.7;
+import ::df::*;
+export material bsdf_microfacet_ggx_smith_reflect(
+  uniform color parTint = color(1.0),
+  uniform float parRoughness = 0.1
+)
+= material(
+  surface: material_surface(
+    scattering: df::microfacet_ggx_smith_bsdf(
+      roughness_u: parRoughness,
+      roughness_v: parRoughness,
+      tint: parTint,
+      mode: df::scatter_reflect
+    )
+  ),
+  ior: color(1.5)
+);
+"""
+GLASS_MDL = """mdl 1.7;
+import ::df::*;
+export material bsdf_specular_reflect_transmit(
+  uniform color parTint = color(1.0),
+  uniform bool parThinWalled = false
+)
+= material(
+  thin_walled: parThinWalled,
+  surface: material_surface(
+    scattering: df::specular_bsdf(
+      tint: parTint,
+      mode: df::scatter_reflect_transmit
+    )
+  ),
+  ior: color(1.5)
+);
+"""
 
 
 class TestTokenizer:
@@ -43,11 +83,18 @@ class TestSceneParser:
         assert len(desc.models) == 8  # 6 planes + 2 boxes
         kinds = [m.kind for m in desc.models]
         assert kinds.count("plane") == 6 and kinds.count("box") == 2
-        assert len(desc.materials) == 7
-        assert desc.camera == pytest.approx((0.750781, 0.5, 55.0, 20.0))
+        assert len(desc.materials) == 6
+        assert desc.camera == pytest.approx((0.75, 0.5, 55.0, 20.0))
         assert desc.center == pytest.approx((0.0, 0.0, 15.0))
-        # env light is commented out in the cornell scene
+        # no declared lights: the ceiling quad's EDF is the only emitter
         assert len(desc.lights) == 0
+
+    def test_big_variant_adds_one_sphere(self):
+        base = parse_scene_description(f"{REF}/scene_mdl_cornell.txt")
+        big = parse_scene_description(f"{REF}/scene_mdl_cornell_big.txt")
+        assert len(big.models) == len(base.models) + 1
+        sphere = big.models[-1]
+        assert sphere.kind == "sphere" and sphere.args[:2] == (180, 90)
 
     def test_transform_stack(self):
         desc = parse_scene_description(f"{REF}/scene_mdl_cornell.txt")
@@ -67,7 +114,7 @@ class TestMDL:
     def test_diffuse_red(self):
         m = parse_mdl_material(f"{REF}/mdl/bsdf_diffuse_reflection_c_red.mdl")
         assert m.archetype == Archetype.DIFFUSE_REFLECTION
-        assert m.albedo == pytest.approx((1.0, 0.0, 0.0))
+        assert m.albedo == pytest.approx((0.63, 0.065, 0.05))
         assert not m.is_emissive
 
     def test_cornell_edf(self):
@@ -75,14 +122,18 @@ class TestMDL:
         assert m.emission_mode == EmissionMode.RADIANT_EXITANCE
         assert m.emission_intensity == pytest.approx((100.0, 100.0, 100.0))
 
-    def test_ggx(self):
-        m = parse_mdl_material(f"{REF}/mdl/bsdf_microfacet_ggx_smith_reflect.mdl")
+    def test_ggx(self, tmp_path):
+        p = tmp_path / "ggx.mdl"
+        p.write_text(GGX_MDL)
+        m = parse_mdl_material(str(p))
         assert m.archetype == Archetype.GGX_REFLECT
         assert m.roughness == pytest.approx((0.1, 0.1))
         assert m.ior == pytest.approx(1.5)
 
-    def test_specular_glass(self):
-        m = parse_mdl_material(f"{REF}/mdl/bsdf_specular_reflect_transmit.mdl")
+    def test_specular_glass(self, tmp_path):
+        p = tmp_path / "glass.mdl"
+        p.write_text(GLASS_MDL)
+        m = parse_mdl_material(str(p))
         assert m.archetype == Archetype.SPECULAR_REFLECT_TRANSMIT
         assert not m.thin_walled
 
@@ -131,6 +182,12 @@ class TestSceneBuild:
         scene, system = load_scene(
             f"{REF}/system_mdl_cornell.txt", f"{REF}/scene_mdl_cornell.txt"
         )
+        # every material resolves from the repository, none degraded
+        assert len(scene.material_report) == 6
+        assert scene.material_load_warnings() == []
+        assert system.resolution == (320, 320)
+        assert system.path_lengths == (2, 6)
+        assert sum(m.is_emissive for m in scene.material_rows) == 1
         # 6 planes x 200 tris + 2 boxes x 12 tris
         assert scene.num_triangles == 6 * 200 + 2 * 12
         lo, hi = scene.aabb()

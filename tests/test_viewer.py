@@ -1,5 +1,6 @@
 """HTTP live viewer (interactive presentation path)."""
 
+import os
 import io
 import json
 import urllib.request
@@ -9,6 +10,10 @@ from PIL import Image
 
 from nrc_tpu.app.viewer import Viewer
 from nrc_tpu.scene.camera import Camera
+
+CORNELL = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "cornell"
+)
 
 
 def _get(url):
@@ -141,8 +146,8 @@ def test_apply_setting_roundtrip():
     from nrc_tpu.scene.scene_builder import load_scene
 
     scene, system = load_scene(
-        "/root/reference/data/system_mdl_cornell.txt",
-        "/root/reference/data/scene_mdl_cornell.txt",
+        f"{CORNELL}/system_mdl_cornell.txt",
+        f"{CORNELL}/scene_mdl_cornell.txt",
     )
     system.resolution = (32, 32)
     r = Renderer(scene, system, train=False, adaptive_tiles=False)

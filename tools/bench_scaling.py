@@ -23,6 +23,11 @@ import time
 
 sys.path.insert(0, ".")
 
+CORNELL = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+    "cornell",
+)
+
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -69,8 +74,8 @@ def main():
     shard_counts = [d for d in (1, 2, 4, 8) if d <= n_dev]
 
     scene, system = load_scene(
-        "/root/reference/data/system_mdl_cornell.txt",
-        "/root/reference/data/scene_mdl_cornell.txt",
+        os.path.join(CORNELL, "system_mdl_cornell.txt"),
+        os.path.join(CORNELL, "scene_mdl_cornell.txt"),
     )
     system.resolution = (args.res, args.res)
     scene.camera.aspect = 1.0

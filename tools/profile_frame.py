@@ -1,13 +1,13 @@
 """Per-stage frame-time profiler: one JSON line per measurement.
 
-Produces the VERDICT-requested frame budget table: wall-clock per frame at
+Produces a frame budget table: wall-clock per frame at
 a given config, optionally with stages truncated (NRC_PROFILE_SKIP) or the
 wide walk's leaf tests stubbed (NRC_WIDE_SKIP_LEAF) to isolate stage cost.
 Each stage knob changes the traced program, so each measurement is one
 process invocation:
 
-    python tools/profile_frame.py --case demo --res 1280x720 --spp 4
-    NRC_PROFILE_SKIP=all python tools/profile_frame.py --case demo ...
+    python tools/profile_frame.py --case cornell_big --res 640x640 --spp 4
+    NRC_PROFILE_SKIP=all python tools/profile_frame.py --case cornell ...
 
 Also reports the bounce-count histogram of the render wavefront (the alive
 decay that sizes inter-bounce ray compaction).
@@ -26,29 +26,25 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
+CORNELL = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+    "cornell",
+)
 CASES = {
     "cornell": (
-        "/root/reference/data/system_mdl_cornell.txt",
-        "/root/reference/data/scene_mdl_cornell.txt",
+        os.path.join(CORNELL, "system_mdl_cornell.txt"),
+        os.path.join(CORNELL, "scene_mdl_cornell.txt"),
     ),
-    "vmaterials": (
-        "/root/reference/data/system_mdl_vMaterials.txt",
-        "/root/reference/data/scene_mdl_vMaterials.txt",
-    ),
-    "demo": (
-        "/root/reference/data/system_mdl_demo.txt",
-        "/root/reference/data/scene_mdl_demo.txt",
-    ),
-    "hair": (
-        "/root/reference/data/system_mdl_hair.txt",
-        "/root/reference/data/scene_mdl_hair.txt",
+    "cornell_big": (
+        os.path.join(CORNELL, "system_mdl_cornell.txt"),
+        os.path.join(CORNELL, "scene_mdl_cornell_big.txt"),
     ),
 }
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--case", default="demo")
+    ap.add_argument("--case", default="cornell", choices=sorted(CASES))
     ap.add_argument("--res", default=None, help="WxH")
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--tile", type=int, default=16)
@@ -92,7 +88,7 @@ def main():
 
     t0 = time.perf_counter()
     r.render_frame()
-    float(jnp.ravel(r.image)[0])
+    jax.block_until_ready(r.image)
     t_compile = time.perf_counter() - t0
 
     # warm frames
@@ -100,34 +96,30 @@ def main():
     t0 = time.perf_counter()
     for _ in range(args.spp):
         stats.append(r.render_frame())
-    float(jnp.ravel(r.image)[0])
-    if bool(args.train):
-        float(jnp.ravel(r.net_state.params.w_in)[0])
+    jax.block_until_ready((r.image, r.net_state))
     dt = time.perf_counter() - t0
     traced = sum(int(s.traced_rays) for s in stats)
 
     xprof_table = None
     if args.xprof:
-        # one traced warm frame; aggregate the perfetto dump's TPU slices
-        # by HLO category (no TensorBoard needed — parse the json directly)
+        # one traced warm frame; aggregate the perfetto dump's device
+        # slices by HLO category (no TensorBoard needed — parse the json)
         import glob
         import gzip
         import json as _json
-        import shutil
+        import tempfile
 
-        tdir = "/tmp/nrc_xprof"
-        shutil.rmtree(tdir, ignore_errors=True)
-        with jax.profiler.trace(tdir):
+        tdir = tempfile.mkdtemp(prefix="nrc_xprof_")
+        with jax.profiler.trace(tdir, create_perfetto_trace=True):
             r.render_frame()
-            float(jnp.ravel(r.image)[0])
+            jax.block_until_ready(r.image)
         agg = {}
         for path in glob.glob(
             f"{tdir}/**/*.trace.json.gz", recursive=True
         ):
             with gzip.open(path, "rt") as f:
                 tr = _json.load(f)
-            # TPU device pids: process names like "/device:TPU:0" or
-            # containing "TPU"; fall back to pids with hlo_category args
+            # device events carry an hlo_category argument
             for ev in tr.get("traceEvents", []):
                 if ev.get("ph") != "X":
                     continue

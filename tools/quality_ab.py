@@ -30,6 +30,11 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+CORNELL = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+    "cornell",
+)
+
 
 def run_variant(name, res):
     import numpy as np
@@ -42,8 +47,8 @@ def run_variant(name, res):
     from nrc_tpu.utils.tonemap import tonemap_to_u8
 
     scene, system = load_scene(
-        "/root/reference/data/system_mdl_cornell.txt",
-        "/root/reference/data/scene_mdl_cornell.txt",
+        os.path.join(CORNELL, "system_mdl_cornell.txt"),
+        os.path.join(CORNELL, "scene_mdl_cornell.txt"),
     )
     system.resolution = (res, res)
     scene.camera.aspect = 1.0
